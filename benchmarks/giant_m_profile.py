@@ -1,10 +1,10 @@
-"""Op-level profile of the giant-m (5M x 100) GN iteration (VERDICT r3
-#2): trace one full solve on the real TPU, aggregate device-op
-durations from the Chrome trace, and attribute the marginal ms/iter
-that benchmarks/roofline.py's cost model cannot explain.
+"""Op-level profile of the giant-m (5M x 100) GN iteration: trace one
+full solve on the GPU and aggregate device-op durations from the Chrome
+trace.
 
 Usage: python benchmarks/giant_m_profile.py [max_iter]
-Prints a per-op table (total ms, share) + per-iteration numbers.
+Prints a per-op table (total ms, share) + per-iteration numbers; the
+trace is kept under <repo>/chiprun_out/giant_m_trace.
 """
 
 from __future__ import annotations
@@ -36,8 +36,10 @@ def parse_trace(trace_dir: str) -> dict:
                  for e in events
                  if e.get("ph") == "M" and e.get("name") == "process_name"
                  and "args" in e}
+    # GPU device planes are named "/device:GPU:<i>" (host threads are
+    # "/host:...").
     device_pids = {pid for pid, name in pid_names.items()
-                   if "TPU" in name or "tpu" in name}
+                   if "/device:GPU" in name}
     tot = defaultdict(float)
     cnt = defaultdict(int)
     meta = {}
@@ -64,7 +66,7 @@ def parse_trace(trace_dir: str) -> dict:
                     scope = s
                     break
             meta[name] = {
-                "source": src.replace("/root/repo/", ""),
+                "source": src.replace(_repo + "/", ""),
                 "scope": scope,
                 "gb": float(args.get("bytes_accessed", 0)) / 2**30,
                 "gflops": float(args.get("model_flops", 0)) / 1e9,
@@ -75,13 +77,9 @@ def parse_trace(trace_dir: str) -> dict:
 
 def main():
     max_iter = int(sys.argv[1]) if len(sys.argv) > 1 else 8
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(_repo, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import bench
 
-    trace_dir = "/tmp/gm_trace"
+    trace_dir = os.path.join(_repo, "chiprun_out", "giant_m_trace")
     rate, n_iter, exit_code, t_act, _peak = bench.bench_giant_m(
         max_iter=max_iter, trace_dir=trace_dir)
     print(f"giant-m: {rate:.2f} iters/s, n_iter={n_iter}, "

@@ -15,8 +15,8 @@ evaluation precision (alternate stationary points hs2/hs13, abnormal
 exits hs16/hs27, and at f32 the precision-limited hs30/hs57).
 
 Usage: python benchmarks/hs_suite_bench.py {f32|f64}
-(f64 requires JAX_ENABLE_X64=1 in the environment; bench.py launches
-this as a subprocess so the x64 flag never pollutes the f32 benches).
+(f64 requires x64: JAX_ENABLE_X64=1 in the environment, or a scoped
+``jax.enable_x64(True)`` as bench.py uses when it calls :func:`run`).
 """
 
 from __future__ import annotations
@@ -30,9 +30,9 @@ import jax
 
 _repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _repo)
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(_repo, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from enlsip_tpu.utils import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -74,7 +74,7 @@ def run(dtype_name: str) -> dict:
               "wall_seconds": round(dt, 1)}
 
     if dtype_name == "f32" and misses:
-        # Hybrid escalation (VERDICT r3 #5): re-solve the non-matched /
+        # Hybrid escalation: re-solve the non-matched /
         # non-converged lanes at f64 in one follow-up launch.  The mask
         # route is used (not the exit-code rule) because the f32
         # precision-limited families (hs30/hs57) terminate POSITIVE at
@@ -105,7 +105,7 @@ def run(dtype_name: str) -> dict:
 
 
 def _multistart(still, dtype, _tols, total, K=32):
-    """Multistart escalation (VERDICT r4 #6): the reference is a
+    """Multistart escalation: the reference is a
     single-start solver, so its published outcomes on
     hs2/hs13/hs16/hs27 (alternate stationary points / abnormal exits,
     oracle-adjudicated in PARITY.md) are its ceiling.  The batched

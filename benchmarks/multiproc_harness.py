@@ -1,8 +1,8 @@
 """Multi-process (multi-host proxy) harness for the sharded batch path.
 
 BASELINE's "multi-host scenario batching" axis targets >=90% scaling
-efficiency to 2+ hosts.  Real multi-host TPU hardware is not available
-to CI, so this harness executes the REAL multi-process code path —
+efficiency to 2+ hosts.  Multi-host hardware is not available to CI,
+so this harness executes the REAL multi-process code path —
 ``jax.distributed.initialize`` + ``jax.make_array_from_process_local_data``
 feeding :func:`enlsip_tpu.parallel.sharding.solve_batched_sharded_mp` —
 on N local CPU processes (each with its own virtual devices, collectives
@@ -322,7 +322,7 @@ def main() -> None:
             summary["collective_fraction"] = max(
                 0.0, 1.0 - w2["hs65"]["t_local_s"] / w2["hs65"]["t_solve_s"])
 
-    # 4-process chain (VERDICT r4 #5).  Needs its OWN 1-core-per-process
+    # 4-process chain.  Needs its OWN 1-core-per-process
     # baseline: this machine has few cores, and a weak-scaling ratio is
     # only meaningful when per-process hardware is constant across the
     # compared configs.

@@ -1,20 +1,21 @@
-"""ENLSIP-TPU: a TPU-native constrained nonlinear least-squares framework.
+"""ENLSIP-JAX: a constrained nonlinear least-squares framework in JAX.
 
 A from-scratch JAX/XLA implementation of the Lindström–Wedin ENLSIP
 method (active-set Gauss–Newton with null-space QR subproblem solves,
 subspace-minimization and Newton fallbacks, and a penalty-weighted
 merit-function line search) with the capabilities of the Julia
-reference UncertainLab/Enlsip.jl, re-designed for TPUs: fixed-shape
-masked working sets inside a single jitted while-loop, AD Jacobians
-and Hessians, vmap batching across instances, and mesh sharding for
-multi-chip scale.
+reference UncertainLab/Enlsip.jl, re-designed for accelerators:
+fixed-shape masked working sets inside a single jitted while-loop, AD
+Jacobians and Hessians, vmap batching across instances, and mesh
+sharding across devices.  The package keeps its historical import name
+``enlsip_tpu``; it runs on the CPU and on NVIDIA GPUs.
 """
 
-# Matmul precision note: TPU MXU matmuls default to bf16 passes for
-# f32 inputs (Precision.DEFAULT); the solver's factorization chains
-# (CPQR panels, J@Q1, triangular solves) lose ~3 decimal digits under
-# that and drop HS-suite optimum matches (hs42/hs53 at f32 on v5e,
-# measured round 3).  Rather than mutating the PROCESS-global
+# Matmul precision note: accelerator matmuls may run f32 inputs in a
+# reduced precision by default (TF32 on NVIDIA GPUs); the solver's
+# factorization chains (CPQR panels, J@Q1, triangular solves) lose ~3
+# decimal digits under that and drop HS-suite optimum matches at f32.
+# Rather than mutating the PROCESS-global
 # jax_default_matmul_precision at import time (which would silently
 # change every other JAX computation in the user's process), every
 # solve entry point scopes the precision to itself via

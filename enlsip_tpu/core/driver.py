@@ -1,4 +1,4 @@
-"""The ENLSIP-TPU solver driver: one jitted iteration body inside a
+"""The ENLSIP solver driver: one jitted iteration body inside a
 single ``lax.while_loop`` plus a thin chunked host loop for wall-clock
 time limits.
 
@@ -6,7 +6,7 @@ Reference: /root/reference/src/enlsip_functions.jl
   WRKSET :686-795 (orchestrated in :func:`_working_set_round`),
   driver ``enlsip`` :2638-2880.
 
-Design notes (TPU-first re-architecture, not a port):
+Design notes (re-architected for accelerators, not a port):
 
 * The reference unrolls the first iteration (:2670-2772); here the loop
   body is uniform and the first-iteration special cases are encoded in
@@ -160,8 +160,7 @@ def _cx_sq_sum(cx, dims: Dims, rdims):
 
 def _factor_and_gn(mask, A, cx, rx, J, gf, dims: Dims, scaling: bool,
                    eps_rank, rdims=None, tsqr_axis=None,
-                   tall_qr: str = "cholqr", jac_base=None,
-                   elide_jq1: bool = False):
+                   tall_qr: str = "cholqr", jac_base=None):
     """One full factorization round: gather/scale -> F_A -> (F_L11) -> GN.
 
     F_L11 is only consumed on the rank-deficient (stabilized) path, so
@@ -175,8 +174,7 @@ def _factor_and_gn(mask, A, cx, rx, J, gf, dims: Dims, scaling: bool,
                      lambda: factor_l11(F_A, act, t),
                      lambda: zeros_factor_l11(dims, F_A.R.dtype))
     gn = gn_search_direction(J, rx, act, F_A, F_L11, rankA, t, eps_rank, dims,
-                             rdims, tsqr_axis, tall_qr, jac_base=jac_base,
-                             elide_jq1=elide_jq1)
+                             rdims, tsqr_axis, tall_qr, jac_base=jac_base)
     return view, t, act, F_A, F_L11, gn
 
 
@@ -205,14 +203,13 @@ def _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
                tall_qr: str = "cholqr",
                stall_hint=jnp.bool_(True),
                rank_deficient_deletion: bool = True,
-               jac_base=None, elide_jq1: bool = False) -> WSRound1:
+               jac_base=None) -> WSRound1:
     """WRKSET round 1 given stage-1 factorization results: GN direction,
     both multiplier estimates, and the round-2 decision (:686-795)."""
     rd = rdims_or(rdims, dims)
     eps_rank = tols.eps_rank
     gn = gn_search_direction(J, rx, act, F_A, F_L11, rankA, t, eps_rank, dims,
-                             rdims, tsqr_axis, tall_qr, jac_base=jac_base,
-                             elide_jq1=elide_jq1)
+                             rdims, tsqr_axis, tall_qr, jac_base=jac_base)
     lam, grad_res = first_mult_estimate(F_A, act, t, dims, scaling, eps_rank)
     s = check_constraint_deletion(rd.q, lam, act.valid, t, scaling,
                                   act.diag_scale, grad_res)
@@ -279,8 +276,7 @@ def _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
 
 def _ws_round2(r1: WSRound1, mask, A, cx, rx, J, gf, dims: Dims,
                scaling: bool, eps_rank, rdims=None, tsqr_axis=None,
-               tall_qr: str = "cholqr", jac_base=None,
-               elide_jq1: bool = False):
+               tall_qr: str = "cholqr", jac_base=None):
     """WRKSET second-order deletion round (:745-764, :773-790): drop the
     suggested constraint and re-run the full factorization chain."""
     s2c = jnp.maximum(r1.s2, 0)
@@ -288,7 +284,7 @@ def _ws_round2(r1: WSRound1, mask, A, cx, rx, J, gf, dims: Dims,
     mask2 = set1(mask, gidx, False)
     view2, t2, act2, F_A2, F_L11_2, gn2 = _factor_and_gn(
         mask2, A, cx, rx, J, gf, dims, scaling, eps_rank, rdims, tsqr_axis,
-        tall_qr, jac_base=jac_base, elide_jq1=elide_jq1)
+        tall_qr, jac_base=jac_base)
     # Compact lam2: new slot j maps to old slot j (+1 past s2).
     tmax = dims.tmax
     j = jnp.arange(tmax)
@@ -306,8 +302,7 @@ def _ws_keep(r1: WSRound1, mask):
 def _working_set_round(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
                        opts: Options, tols: Tols, rdims=None,
                        stall_hint=jnp.bool_(True),
-                       jac_base=None,
-                       elide_jq1: bool = False) -> WorkingSetRound:
+                       jac_base=None) -> WorkingSetRound:
     """WRKSET (:686-795), see module docstring for the branch analysis."""
     scaling = opts.scaling
     eps_rank = tols.eps_rank
@@ -321,8 +316,7 @@ def _working_set_round(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
         r1 = _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims, scaling,
                         tols, view, t, act, F_A, rankA, F_L11, rdims,
                         opts.tsqr_axis, opts.tall_qr, stall_hint,
-                        opts.rank_deficient_deletion, jac_base=jac_base,
-                        elide_jq1=elide_jq1)
+                        opts.rank_deficient_deletion, jac_base=jac_base)
 
     with jax.named_scope("ws_round2"):
         (mask_o, view_o, t_o, act_o, F_A_o, F_L11_o, gn_o, lam_o, deleted,
@@ -330,8 +324,7 @@ def _working_set_round(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
             r1.do2,
             lambda _: _ws_round2(r1, mask, A, cx, rx, J, gf, dims, scaling,
                                  eps_rank, rdims, opts.tsqr_axis,
-                                 opts.tall_qr, jac_base=jac_base,
-                                 elide_jq1=elide_jq1),
+                                 opts.tall_qr, jac_base=jac_base),
             lambda _: _ws_keep(r1, mask), None)
     return WorkingSetRound(mask=mask_o, view=view_o, t=t_o, act=act_o,
                            F_A=F_A_o, F_L11=F_L11_o, gn=gn_o, lam=lam_o,
@@ -385,13 +378,10 @@ def iterate_body(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     stall_hint = (carry.nb_iter >= 2) & \
         (x_diff_prev < tols.eps_x * (1.0 + jnp.linalg.norm(x)))
     jb = fns.jac_base() if fns.jac_base is not None else None
-    # JQ1-write elision: safe exactly when the Newton branch (the only
-    # true JQ1 reader) is statically off — see gn_search_direction.
-    elide = jb is not None and not opts.second_derivatives
     with jax.named_scope("wrkset"):
         wsr = _working_set_round(carry.active_mask, A, cx, rx, J, gf,
                                  carry.index_del, dims, opts, tols, rdims,
-                                 stall_hint, jac_base=jb, elide_jq1=elide)
+                                 stall_hint, jac_base=jb)
     t = wsr.t
     act_idx = wsr.view.active_list[:dims.tmax]
     active_cx_sum = jnp.sum(jnp.where(wsr.act.valid, cx[act_idx] ** 2, 0.0))

@@ -10,12 +10,12 @@ Fixed-shape re-design of the reference's factorization chain
 * GNSRCH  (enlsip_functions.jl:206-234)    -> :func:`gn_search_direction`
 * NEWTON  (enlsip_functions.jl:348-423)    -> :func:`newton_search_direction`
   (HESSF/HESSH finite differences at :243-328 are replaced by exact AD
-  Hessian contractions — the TPU-native choice)
+  Hessian contractions)
 
 All matrices live in fixed max-size buffers; the working set enters as
 gathered, masked rows; ranks/dims are traced int32.  Q factors stay
 implicit: the blocked pivoted QR (ops/blocked_qr.py) returns compact-WY
-reflectors, so J @ Q1, Q^T v and Q v are a couple of MXU GEMMs each —
+reflectors, so J @ Q1, Q^T v and Q v are a couple of GEMMs each:
 Q is never materialized.
 """
 
@@ -26,8 +26,8 @@ from typing import Callable, NamedTuple
 import jax
 import jax.numpy as jnp
 
-from ..ops.blocked_qr import (CPQRF, _panels, cpqr_blocked, q_apply,
-                              qt_apply, right_q_apply)
+from ..ops.blocked_qr import (CPQRF, cpqr_blocked, q_apply, qt_apply,
+                              right_q_apply)
 from ..ops.qr import invperm, pseudo_rank, solve_lower, solve_upper
 from .types import Dims, WorkingView, rdims_or
 
@@ -121,7 +121,7 @@ def j2_transform_d(F_J2: "FactorJ2", JQ1: jax.Array, p1n: jax.Array,
         # rare subspace branch free of (m, n)-broadcast operands (XLA
         # hoists those out of the cond; benchmarks/giant_m_profile.py).
         #
-        # Cancellation envelope (ADVICE r4): reconstructing M^T v and
+        # Cancellation envelope: reconstructing M^T v and
         # ||v||^2 from the Gram has absolute error ~eps*||JQ1||^2*
         # ||p1n|| instead of the materialized-v path's ~eps*||JQ1||*
         # ||v||.  When ||v|| << ||JQ1 p1n|| (near-exact GN steps on
@@ -135,9 +135,7 @@ def j2_transform_d(F_J2: "FactorJ2", JQ1: jax.Array, p1n: jax.Array,
         # to the LEAEST rhs in second_mult_estimate, which rides this
         # Gram too.
         G = F_J2.f.G
-        # One tall stream — already fused into the factorization pass
-        # when the Pallas path produced it (CholQRF.jtrx).
-        jtrx = F_J2.f.jtrx if F_J2.f.jtrx is not None else F_J2.f.M.T @ rx
+        jtrx = F_J2.f.M.T @ rx                      # the one tall stream
         Gp = G @ p1n
         y = -Gp - jtrx
         v_sq = jnp.maximum(p1n @ Gp + 2.0 * (p1n @ jtrx) + jnp.dot(rx, rx),
@@ -263,8 +261,7 @@ def second_mult_estimate(F_A: FactorA, JQ1: jax.Array, rx: jax.Array,
     cols = jnp.arange(dims.n) < t
     if F_J2 is not None and y_gn is not None and \
             isinstance(F_J2.f, CholQRF) and F_J2.f.G is not None:
-        jtrx = F_J2.f.jtrx if F_J2.f.jtrx is not None else F_J2.f.M.T @ rx
-        b_raw = jtrx + F_J2.f.G @ y_gn
+        b_raw = F_J2.f.M.T @ rx + F_J2.f.G @ y_gn
     else:
         # J1^T v with J1 = first t cols of JQ1: mask the (n,) RESULT,
         # not a materialized (n, m) operand copy (an (m, n) stream per
@@ -332,78 +329,40 @@ def gn_search_direction(J: jax.Array, rx: jax.Array, act: ActiveConstraint,
                         F_A: FactorA, F_L11: FactorL11, rankA: jax.Array,
                         t: jax.Array, eps_rank: jax.Array, dims: Dims,
                         rdims=None, tsqr_axis=None,
-                        tall_qr: str = "cholqr", jac_base=None,
-                        elide_jq1: bool = False) -> GNResult:
+                        tall_qr: str = "cholqr", jac_base=None) -> GNResult:
     """GNSRCH (enlsip_functions.jl:206-234).
 
     ``jac_base`` (factored-Jacobian mode, Functions.jac_rowscale/
     jac_base): ``J`` then holds the (m, 1) row scale and the semantic
-    Jacobian is diag(J[:, 0]) @ jac_base; the WY apply streams the
-    base with the scale fused in-kernel so the dense J never exists.
-
-    ``elide_jq1`` (driver sets it when factored AND second_derivatives
-    is off): additionally skip the (m, n) JQ1 WRITE — every consumer
-    then rides the kept Gram (j2_transform_d / second_mult_estimate
-    small-side algebra; the Newton branch, the only true JQ1 reader,
-    is statically excluded).  GNResult.JQ1 and CholQRF.M become (0, n)
-    placeholders and the d-vector embedding compacts to (n + 1,)
-    (ops/tsqr._qt_cholqr) — exact for every consumer, which reads at
-    most the leading n entries plus the complement norm."""
+    Jacobian is diag(J[:, 0]) @ jac_base; the WY apply runs on the
+    base and the scale is applied to its result, so the dense J is
+    never formed."""
     n = dims.n
     rd = rdims_or(rdims, dims)
     rows = jac_base.shape[0] if jac_base is not None else J.shape[0]
     cols = jnp.arange(n)
     live_cols = cols >= rankA
     tall = rows >= 32 * n and rows >= 4096
-    # Fused single-pass path (giant-m single chip, cholqr): the WY
-    # apply, the CholQR Gram, and the JQ1^T rx projection fuse into ONE
-    # Pallas pass over J — one J read + one JQ1 write + one rx read of
-    # HBM traffic, vs five (m, n)-class streams (the apply's GEMM
-    # chain, the Gram's column-major operand copy, and two more JQ1
-    # reads) left to XLA (benchmarks/giant_m_profile.py).
-    gram = jtrx = None
-    panels = _panels(F_A.f)
-    if (tall and tall_qr == "cholqr" and tsqr_axis is None
-            and len(panels) == 1):
-        from ..ops.pallas_wy import use_wy_pallas, wy_gram_project
-        V0, T0 = panels[0]
-        if use_wy_pallas(rows, n, V0.shape[1], J.dtype):
-            if jac_base is not None and elide_jq1:
-                from ..ops.pallas_wy import wy_gram_project_noapply
-                gram, jtrx = wy_gram_project_noapply(jac_base, V0, T0, rx,
-                                                     rowscale=J[:, 0])
-                JQ1 = jnp.zeros((0, n), J.dtype)
-            elif jac_base is not None:
-                JQ1, gram, jtrx = wy_gram_project(jac_base, V0, T0, rx,
-                                                  rowscale=J[:, 0])
-            else:
-                JQ1, gram, jtrx = wy_gram_project(J, V0, T0, rx)
-        elif jac_base is not None:
-            JQ1 = J * right_q_apply(F_A.f, jac_base, allow_pallas=False)
-        else:
-            JQ1 = right_q_apply(F_A.f, J, allow_pallas=False)
-    elif jac_base is not None:
+    if jac_base is not None:
         # (m, 1) scale broadcasts over the applied base.
-        JQ1 = J * right_q_apply(F_A.f, jac_base,
-                                allow_pallas=tsqr_axis is None)
+        JQ1 = J * right_q_apply(F_A.f, jac_base)
     else:
-        JQ1 = right_q_apply(F_A.f, J, allow_pallas=tsqr_axis is None)
+        JQ1 = right_q_apply(F_A.f, J)
     # Only n - rankA columns are live; skip the no-op steps.
     if tsqr_axis is not None or tall:
-        # Tall panel (giant-m; single chip or row-sharded): a two-stage
+        # Tall panel (giant-m; one device or row-sharded): a two-stage
         # factorization replaces the n-step pivot loop that would
         # stream the full (m, n) buffer each step.  Column norms (hence
         # pivoting and rank decisions) are preserved by both stages.
         if tall_qr == "cholqr":
-            # MXU-speed Gram + shifted Cholesky, implicit Q; sharded
+            # GEMM-speed Gram + shifted Cholesky, implicit Q; sharded
             # rows contract through ONE (n, n) psum (ops/tsqr.CholQRF).
             # JQ1 is passed UNMASKED; dead columns are zeroed on the
             # (n, n) Gram instead (bitwise identical, saves a full
             # (m, n) masked-copy round trip per factorization).
             from ..ops.tsqr import cholqr_cpqr
             F_J2 = FactorJ2(f=cholqr_cpqr(JQ1, nsteps=n - rankA,
-                                          col_live=live_cols, gram=gram,
-                                          jtrx=jtrx))
+                                          col_live=live_cols))
         else:
             J2buf = jnp.where(live_cols[None, :], JQ1, 0.0)
             # Householder first stage: local/whole thin QR + pivoted QR
@@ -435,8 +394,8 @@ def hessian_contractions(res_fn: Callable, cons_fn: Callable, x: jax.Array,
     c_mat = sum_i lam_i   * hess(c_i)(x)   = hess_x <c(x), lam_full>
 
     The reference computes these by O(n^2) central finite differences of
-    the user functions; on TPU nested forward-over-reverse AD is both
-    exact and massively cheaper.
+    the user functions; nested forward-over-reverse AD is both exact
+    and far cheaper on an accelerator.
     """
     rxc = jax.lax.stop_gradient(rx)
     lamc = jax.lax.stop_gradient(lam_full)

@@ -1,4 +1,4 @@
-"""State pytrees and static configuration for the ENLSIP-TPU solver.
+"""State pytrees and static configuration for the ENLSIP solver.
 
 The reference threads a mutable ``Iteration`` record plus a
 ``WorkingSet`` through its loop (/root/reference/src/structures.jl:63-98,
@@ -101,22 +101,22 @@ class Options:
     # instead of GSPMD-partitioning the pivot loop.  Requires an ambient
     # mesh (jax.set_mesh) whose named axis shards the residual rows.
     tsqr_axis: str | None = None
-    # Tall-panel (m >> n) J2 factorization method, both single-chip and
-    # row-sharded: "cholqr" (shifted CholeskyQR + pivoted QR of R1,
-    # implicit Q — MXU speed, one psum when sharded; ops/tsqr.CholQRF)
+    # Tall-panel (m >> n) J2 factorization method, both single-device
+    # and row-sharded: "cholqr" (shifted CholeskyQR + pivoted QR of R1,
+    # implicit Q, GEMM speed, one psum when sharded; ops/tsqr.CholQRF)
     # or "qr" (Householder thin QR first stage; numerically safest for
-    # cond(J2) beyond ~1/sqrt(eps), ~30x slower on TPU at 5M rows).
+    # cond(J2) beyond ~1/sqrt(eps), much slower at millions of rows).
     tall_qr: str = "cholqr"
-    # Matmul precision for every dot/GEMM inside this solve.  TPU MXU
-    # matmuls default to bf16 multiply passes for f32 inputs, which
-    # costs ~3 decimal digits through the factorization chains and
-    # drops HS-suite optimum matches (measured round 3); "float32"
-    # (the default) forces full-f32 passes for reference-grade
-    # accuracy.  "bfloat16"/"tensorfloat32" opt back into the fast MXU
-    # passes per solve for users who accept the accuracy trade — the
-    # TPU-native analogue of the reference's per-call element type T
-    # (/root/reference/src/solver.jl:62).  None inherits the ambient
-    # jax default (no scope is installed).
+    # Matmul precision for every dot/GEMM inside this solve.
+    # Accelerator matmuls may run f32 inputs in reduced precision by
+    # default (TF32 on NVIDIA GPUs), which costs ~3 decimal digits
+    # through the factorization chains and drops HS-suite optimum
+    # matches; "float32" (the default) forces IEEE f32 products for
+    # reference-grade accuracy.  "bfloat16"/"tensorfloat32" opt back
+    # into the fast tensor-core passes per solve for users who accept
+    # the accuracy trade: the analogue of the reference's per-call
+    # element type T (solver.jl:62).  None inherits the ambient jax
+    # default (no scope is installed).
     matmul_precision: str | None = "float32"
     # D13 (f32 only; no effect at f64): allow the second-order
     # working-set deletion round on a pseudo-rank-DEFICIENT

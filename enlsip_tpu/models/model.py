@@ -270,12 +270,11 @@ def solve(model: CnlsModel, *, silent: bool = True, max_iter: int = 100,
     value here IS enforced, unlike the reference only approximately at
     chunk granularity).
 
-    ``matmul_precision``: per-solve MXU precision — the TPU-native
-    analogue of the reference's element-type parameter T
-    (solver.jl:62).  "float32" (default) = full-precision passes,
-    reference-grade accuracy; "bfloat16"/"tensorfloat32" = fast MXU
-    passes (~1.6x faster GEMM-bound solves, ~3 fewer decimal digits);
-    None = inherit the ambient JAX default.
+    ``matmul_precision``: per-solve matmul precision, the analogue of
+    the reference's element-type parameter T (solver.jl:62).
+    "float32" (default) = IEEE f32 products, reference-grade accuracy;
+    "bfloat16"/"tensorfloat32" = fast tensor-core passes (~3 fewer
+    decimal digits); None = inherit the ambient JAX default.
     """
     if dtype is None:
         dtype = jnp.zeros(0).dtype  # respects jax_enable_x64
@@ -326,8 +325,8 @@ def solve(model: CnlsModel, *, silent: bool = True, max_iter: int = 100,
 
 def _print_header(model: CnlsModel, out) -> None:
     out.write("\n" + "*" * 64 + "\n")
-    out.write("*" + " " * 21 + "ENLSIP-TPU (JAX/XLA)" + " " * 21 + "*\n")
-    out.write("* TPU-native constrained nonlinear least squares solver       *\n")
+    out.write("*" + " " * 21 + "ENLSIP-JAX (JAX/XLA)" + " " * 21 + "*\n")
+    out.write("* JAX constrained nonlinear least squares solver              *\n")
     out.write("* implementing the Lindstrom-Wedin ENLSIP method.             *\n")
     out.write("*" * 64 + "\n\n")
     out.write("Characteristics of the model\n\n")
@@ -347,7 +346,7 @@ def print_cnls_model(model: CnlsModel, out=None) -> None:
     _print_header(model, out)
     if status(model) == "unsolved":
         out.write("Model has been initialized.\n\n"
-                  "Method solve can be called to execute ENLSIP-TPU.\n")
+                  "Method solve can be called to execute ENLSIP-JAX.\n")
         return
     info = model.model_info
     out.write("\nIteration steps information\n\n")

@@ -1,128 +1,149 @@
-"""Fused batched CPQR: one Pallas program factorizes a block of lanes.
+"""Fused batched CPQR: one Pallas (Triton) program factorizes a block of lanes.
 
 The batched solver's hot factorization is thousands of tiny masked
 pivoted QRs (HS-suite shapes: rows, cols <= ~16) under ``vmap``.  As an
-XLA loop that regime runs at <1% of HBM stream: each of the ~20 ops per
-Householder step is a separate kernel over a (B, 8, 8) buffer whose
-trailing dimension fills 8 of 128 vector lanes, and the sequential
-``fori_loop`` prevents cross-step fusion.
+XLA loop each of the kmax Householder steps is ~20 small kernels over a
+(B, rows, cols) buffer, and the sequential ``fori_loop`` prevents
+cross-step fusion, so the loop is bound by kernel launches rather than
+by memory or arithmetic.
 
 This kernel runs the ENTIRE factorization of a block of ``LB`` lanes in
-one Pallas program, data resident in VMEM, in structure-of-arrays
-layout ``(cols, rows, LB)``: the batch fills the 128-wide lane
-dimension, matrix axes live on sublanes/major dims, and the step loop
-is unrolled (``kmax`` is static and tiny).  Reflector tails are packed
-below the diagonal LAPACK-style, so the caller rebuilds the same
-compact-WY :class:`~enlsip_tpu.ops.blocked_qr.CPQRF` the XLA path
-returns (same pivot tie-breaking, sign convention, tau = 0 no-op
-reflectors for zero columns), up to f32 reduction-order rounding.
+one program, in structure-of-arrays layout ``(cols, rows, lanes)``: the
+batch is the contiguous (last) axis, so consecutive lanes map onto
+consecutive threads of a warp and every load and store coalesces.
+Rows and columns are padded inside the program to powers of two by
+masked loads (Triton's tensors have power-of-two shapes); padded
+entries are zero, pivot last and never reach the outputs.  Columns are
+extracted by one-hot reductions, because Triton cannot slice register
+tensors.  The kernel has no dot products: every operation is an
+elementwise IEEE f32 multiply, add or reduction, so its precision does
+not depend on the ambient matmul setting (no TF32 path exists).
+Reflector tails are packed below the diagonal LAPACK-style,
+so the caller rebuilds the same compact-WY
+:class:`~enlsip_tpu.ops.blocked_qr.CPQRF` the XLA path returns (same
+pivot tie-breaking, sign convention, tau = 0 no-op reflectors for zero
+columns), up to f32 reduction-order rounding.
 
 Reference role: the batched equivalent of LAPACK ``geqp3``
-(``qr(A', ColumnNorm())``, /root/reference/src/enlsip_functions.jl:700)
-for scenario batches — a regime the single-instance reference never had.
+(``qr(A', ColumnNorm())``, enlsip_functions.jl:700) for scenario
+batches, a regime the single-instance reference never had.
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-# Lanes per Pallas program: fills the 128-wide VPU lane dimension and
-# amortizes program overhead.  VMEM per program is tiny:
-# (cols*rows + cols + kmax) * LB * 4 bytes (~0.5 MB at 16x16x512).
-LANE_BLOCK = 512
+# Elements of the (cols, rows, lanes) tile one program keeps in
+# registers; the lane block is the largest power of two that fits.
+TILE_ELEMS = 4096
+# Lane-block bounds and the number of programs the batch is split into
+# before the block grows (enough blocks in flight to fill every SM).
+MIN_LANE_BLOCK = 8
+MAX_LANE_BLOCK = 256
+TARGET_PROGRAMS = 512
 
-# Static gates for the kernel path (beyond these, the XLA loop with
-# panel-WY blocking is the right tool anyway).
-MAX_KMAX = 32
-MAX_ELEMS = 32 * 64
+# Static gates for the kernel path, set from timings on an H100 (B=4096,
+# kernel vs the vmapped XLA loop): the kernel is faster at every shape
+# up to 16 x 32 and slower at 32 x 32, where each program's tile of a
+# few lanes leaves the card underused.
+MAX_KMAX = 16
+MAX_ELEMS = 16 * 32
 
 
-def _kernel(a_ref, r_ref, tp_ref, *, kmax: int):
-    """Factorize a block of LB lanes.
+def _pow2(x: int) -> int:
+    return 1 << max(0, (int(x) - 1).bit_length())
 
-    a_ref: (cols, rows, LB) SoA input — lane b's matrix is a[:, :, b].T.
-    r_ref: (cols, rows, LB) packed output (R in the upper triangle read
-      matrix-wise, reflector tails below the diagonal).
-    tp_ref: (kmax + cols, LB) — taus stacked over perm.  (This Mosaic
-      version SIGABRTs on a third kernel output and on int32 2D
-      outputs, so tau and perm ship merged as one f32 buffer; perm
-      values are small exact ints, cast back by the wrapper.)
+
+def lane_block(rows: int, cols: int, batch: int) -> int:
+    """Lanes per program for a (rows, cols) shape and batch size."""
+    fit = TILE_ELEMS // (_pow2(rows) * _pow2(cols))
+    fit = max(1, 1 << (max(fit, 1).bit_length() - 1))     # pow2 floor
+    want = _pow2(-(-batch // TARGET_PROGRAMS))
+    return max(1, min(fit, MAX_LANE_BLOCK, max(MIN_LANE_BLOCK, want)))
+
+
+def _kernel(a_ref, r_ref, tau_ref, perm_ref, *, batch, rows, cols, lb):
+    """Factorize lanes [pid * lb, pid * lb + lb) of the batch.
+
+    a_ref: (cols, rows, batch) input, lane b's matrix is a[:, :, b].T.
+    r_ref: (cols, rows, batch) packed output (R in the upper triangle
+      read matrix-wise, reflector tails below the diagonal).
+    tau_ref: (kmax, batch); perm_ref: (cols, batch) int32.
     """
-    cols, rows, lb = a_ref.shape
-    A = a_ref[...]
-    # NOTE: slicing a 3D iota ([:, 0, :]) SIGABRTs this Mosaic version;
-    # build each iota directly at the shape it is used at.
-    ridx3 = jax.lax.broadcasted_iota(jnp.int32, A.shape, 1)
-    cidx = jax.lax.broadcasted_iota(jnp.int32, (cols, lb), 0)   # (cols, LB)
-    rr = jax.lax.broadcasted_iota(jnp.int32, (rows, lb), 0)     # (rows, LB)
-    # int32 select/reduce chains SIGABRT this Mosaic version, so the
-    # permutation bookkeeping runs in f32 (small ints, exact).
-    cidx_f = cidx.astype(A.dtype)
-    perm = cidx_f
-    taus = jnp.zeros((kmax, lb), A.dtype)
-    kidx = jax.lax.broadcasted_iota(jnp.int32, (kmax, lb), 0)
+    kmax = min(rows, cols)
+    C, R, K = _pow2(cols), _pow2(rows), _pow2(kmax)
+    lane = pl.program_id(0) * lb + jnp.arange(lb)
+    live = lane < batch
+    c3 = lax.broadcasted_iota(jnp.int32, (C, R, lb), 0)
+    r3 = lax.broadcasted_iota(jnp.int32, (C, R, lb), 1)
+    c2 = lax.broadcasted_iota(jnp.int32, (C, lb), 0)
+    r2 = lax.broadcasted_iota(jnp.int32, (R, lb), 0)
+    k2 = lax.broadcasted_iota(jnp.int32, (K, lb), 0)
+    in3 = (c3 < cols) & (r3 < rows) & live[None, None, :]
+    A = plgpu.load(a_ref.at[c3, r3, lane[None, None, :]], mask=in3,
+                   other=0.0)
+    zero = jnp.zeros((), A.dtype)
 
-    # Mosaic note: every intermediate stays >= 2D with the lane (batch)
-    # axis last; per-lane scalars are (1, LB) rows.
-    for k in range(kmax):
+    def step(k, carry):
+        A, perm, taus = carry
         # ---- trailing column norms + first-max pivot per lane --------
         # (columns < k hold packed reflector tails below the diagonal;
-        # they are excluded from the pivot search by the cidx mask)
-        sub = jnp.where(ridx3 >= k, A, 0.0)
-        nrm2 = jnp.sum(sub * sub, axis=1)                       # (cols, LB)
-        nrm2 = jnp.where(cidx >= k, nrm2, -1.0)
-        mx = jnp.max(nrm2, axis=0, keepdims=True)               # (1, LB)
-        piv = jnp.min(jnp.where(nrm2 == mx, cidx_f, float(cols)),
-                      axis=0, keepdims=True)                    # (1, LB)
-        onehot_p = cidx_f == piv                                # (cols, LB)
-        is_k = cidx == k
-        # ---- swap matrix columns k <-> piv (per lane) -----------------
-        colp = jnp.sum(jnp.where(onehot_p[:, None, :], A, 0.0), axis=0)
-        colk = A[k]                                             # (rows, LB)
-        A = jnp.where(is_k[:, None, :], colp[None],
-                      jnp.where(onehot_p[:, None, :], colk[None], A))
-        # (sublane-slicing an iota-derived value SIGABRTs this Mosaic
-        # version — extract perm[k] by one-hot sum instead)
-        pk = jnp.sum(jnp.where(is_k, perm, 0.0), axis=0,
-                     keepdims=True)                             # (1, LB)
-        pp = jnp.sum(jnp.where(onehot_p, perm, 0.0), axis=0,
-                     keepdims=True)                             # (1, LB)
-        perm = jnp.where(is_k, pp, jnp.where(onehot_p, pk, perm))
-        # ---- Householder reflector on column k ------------------------
-        col = A[k]                                              # (rows, LB)
-        tail = jnp.where(rr >= k, col, 0.0)
-        alpha = col[k:k + 1]                                    # (1, LB)
-        signorm = jnp.sqrt(jnp.sum(tail * tail, axis=0,
-                                   keepdims=True))              # (1, LB)
-        sign = jnp.where(alpha >= 0, 1.0, -1.0)
-        beta = -sign * signorm
+        # they are excluded from the pivot search by the column mask)
+        sub = jnp.where(r3 >= k, A, zero)
+        nrm2 = jnp.sum(sub * sub, axis=1)                       # (C, lb)
+        nrm2 = jnp.where(c2 >= k, nrm2, -1.0)
+        mx = jnp.max(nrm2, axis=0)                              # (lb,)
+        piv = jnp.min(jnp.where(nrm2 == mx[None, :], c2, C), axis=0)
+        onehot2 = c2 == piv[None, :]                            # (C, lb)
+        onehot3 = c3 == piv[None, None, :]
+        is_k2, is_k3 = c2 == k, c3 == k
+        # ---- swap matrix columns k <-> piv (per lane) ----------------
+        colp = jnp.sum(jnp.where(onehot3, A, zero), axis=0)     # (R, lb)
+        colk = jnp.sum(jnp.where(is_k3, A, zero), axis=0)
+        A = jnp.where(is_k3, colp[None],
+                      jnp.where(onehot3, colk[None], A))
+        pk = jnp.max(jnp.where(is_k2, perm, -1), axis=0)
+        pp = jnp.max(jnp.where(onehot2, perm, -1), axis=0)
+        perm = jnp.where(is_k2, pp[None, :],
+                         jnp.where(onehot2, pk[None, :], perm))
+        # ---- Householder reflector on column k -----------------------
+        tail = jnp.where(r2 >= k, colp, zero)
+        alpha = jnp.sum(jnp.where(r2 == k, colp, zero), axis=0)  # (lb,)
+        signorm = jnp.sqrt(jnp.sum(tail * tail, axis=0))
+        beta = jnp.where(alpha >= 0, -signorm, signorm)
         denom = alpha - beta
         safe = jnp.abs(denom) > 0
         denom = jnp.where(safe, denom, 1.0)
-        v = jnp.where(rr > k, tail / denom, 0.0)
-        v = jnp.where(rr == k, jnp.where(safe, 1.0, 0.0), v)    # (rows, LB)
+        v = jnp.where(r2 > k, tail / denom[None, :], zero)
+        v = jnp.where(r2 == k, jnp.where(safe, 1.0, 0.0)[None, :], v)
         tau = jnp.where(safe & (beta != 0),
                         (beta - alpha) / jnp.where(beta != 0, beta, 1.0),
-                        0.0)                                    # (1, LB)
-        taus = jnp.where(kidx == k, tau, taus)
-        # ---- apply H = I - tau v v^T to the trailing columns ----------
-        # (columns <= k are written explicitly; columns < k hold packed
-        # tails that must not receive the update)
-        vtA = jnp.sum(v[None] * A, axis=1)                      # (cols, LB)
-        vtA = jnp.where(cidx > k, vtA, 0.0)
-        A = A - tau[None] * v[None] * vtA[:, None, :]
+                        zero)                                   # (lb,)
+        taus = jnp.where(k2 == k, tau[None, :], taus)
+        # ---- apply H = I - tau v v^T to the trailing columns ---------
+        vtA = jnp.sum(v[None] * A, axis=1)                      # (C, lb)
+        vtA = jnp.where(c2 > k, vtA, zero) * tau[None, :]
+        A = A - v[None] * vtA[:, None, :]
         # ---- column k: R above, beta on the diagonal, packed reflector
         # tail below (rows < k untouched by H since v vanishes there) --
-        newcol = jnp.where(rr == k, jnp.where(safe, beta, alpha),
-                           jnp.where(rr < k, colp, v))
-        A = jnp.where(is_k[:, None, :], newcol[None], A)
+        newcol = jnp.where(r2 == k, jnp.where(safe, beta, alpha)[None, :],
+                           jnp.where(r2 < k, colp, v))
+        A = jnp.where(is_k3, newcol[None], A)
+        return A, perm, taus
 
-    r_ref[...] = A
-    tp_ref[0:kmax, :] = taus
-    tp_ref[kmax:kmax + cols, :] = perm
+    A, perm, taus = lax.fori_loop(
+        0, kmax, step, (A, c2, jnp.zeros((K, lb), A.dtype)))
+    plgpu.store(r_ref.at[c3, r3, lane[None, None, :]], A, mask=in3)
+    plgpu.store(tau_ref.at[k2, lane[None, :]], taus,
+                mask=(k2 < kmax) & live[None, :])
+    plgpu.store(perm_ref.at[c2, lane[None, :]], perm,
+                mask=(c2 < cols) & live[None, :])
 
 
 def cpqr_batched_packed(M: jax.Array, *, interpret: bool = False):
@@ -133,38 +154,27 @@ def cpqr_batched_packed(M: jax.Array, *, interpret: bool = False):
     """
     B, rows, cols = M.shape
     kmax = min(rows, cols)
-    # Pad the batch to a whole number of kernel lane-blocks.  The grid
-    # below is bp // lb, so bp MUST be a multiple of lb: padding only to
-    # the 128-lane width left a partial trailing block UNPROCESSED for
-    # B > LANE_BLOCK and B % LANE_BLOCK != 0 (e.g. B = 10000: lanes
-    # 9728..9999 returned uninitialized garbage — caught round 3 as
-    # NaN solves in the ODE-fit bench, tests/test_pallas_batched_qr.py
-    # ::test_batched_cpqr_partial_block).
-    bp = -(-max(B, 1) // 128) * 128
-    lb = min(LANE_BLOCK, bp)
-    bp = -(-bp // lb) * lb
-    if bp != B:
-        M = jnp.pad(M, ((0, bp - B), (0, 0), (0, 0)))
-    At = jnp.transpose(M, (2, 1, 0))                            # (cols, rows, bp)
-    packed_t, tp_t = pl.pallas_call(
-        lambda a, r, tp: _kernel(a, r, tp, kmax=kmax),
-        grid=(bp // lb,),
-        in_specs=[pl.BlockSpec((cols, rows, lb), lambda i: (0, 0, i))],
-        out_specs=(pl.BlockSpec((cols, rows, lb), lambda i: (0, 0, i)),
-                   pl.BlockSpec((kmax + cols, lb), lambda i: (0, i))),
-        out_shape=(jax.ShapeDtypeStruct((cols, rows, bp), M.dtype),
-                   jax.ShapeDtypeStruct((kmax + cols, bp), M.dtype)),
+    lb = lane_block(rows, cols, B)
+    elems = _pow2(rows) * _pow2(cols) * lb
+    At = jnp.transpose(M, (2, 1, 0))                       # (cols, rows, B)
+    packed_t, tau_t, perm_t = pl.pallas_call(
+        functools.partial(_kernel, batch=B, rows=rows, cols=cols, lb=lb),
+        grid=(-(-B // lb),),
+        out_shape=(jax.ShapeDtypeStruct((cols, rows, B), M.dtype),
+                   jax.ShapeDtypeStruct((kmax, B), M.dtype),
+                   jax.ShapeDtypeStruct((cols, B), jnp.int32)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=max(1, min(8, elems // 512)), num_stages=1),
         interpret=interpret,
+        name="cpqr_batched",
     )(At)
-    packed = jnp.transpose(packed_t, (2, 1, 0))[:B]
-    tau = jnp.transpose(tp_t[:kmax], (1, 0))[:B]
-    perm = jnp.transpose(tp_t[kmax:], (1, 0))[:B].astype(jnp.int32)
-    return packed, tau, perm
+    return (jnp.transpose(packed_t, (2, 1, 0)), tau_t.T, perm_t.T)
 
 
 def cpqr_blocked_batched(M: jax.Array, *, interpret: bool = False):
     """Batched :class:`~enlsip_tpu.ops.blocked_qr.CPQRF` (leading B axis)
-    via the fused kernel — drop-in for ``jax.vmap(cpqr_blocked)``."""
+    via the fused kernel, drop-in for ``jax.vmap(cpqr_blocked)``."""
     from .blocked_qr import CPQRF, _panel_T
     B, rows, cols = M.shape
     kmax = min(rows, cols)
@@ -175,7 +185,7 @@ def cpqr_blocked_batched(M: jax.Array, *, interpret: bool = False):
     V = jnp.where(ridx > kcol, Bk, 0.0)
     V = V + jnp.where((ridx == kcol) & (tau[:, None, :] > 0), 1.0, 0.0)
     R = jnp.triu(packed[:, :kmax, :])
-    # Single WY panel: nb == kmax (the gate keeps kmax <= 32 << NB).
+    # Single WY panel: nb == kmax (the gate keeps kmax <= 16 << NB).
     T = jax.vmap(lambda v, t: _panel_T(v, t, kmax))(V, tau)
     diag = jnp.diagonal(R, axis1=1, axis2=2)
     return CPQRF(R=R, perm=perm, V=V, tau=tau, T=T, diag=diag)

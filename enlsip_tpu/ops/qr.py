@@ -1,4 +1,4 @@
-"""Fixed-shape masked dense linear algebra for the ENLSIP-TPU core.
+"""Fixed-shape masked dense linear algebra for the ENLSIP core.
 
 The reference solver (Enlsip.jl) leans on LAPACK's column-pivoted
 Householder QR (``qr(Â, ColumnNorm())``, see
@@ -23,11 +23,11 @@ Under jit/vmap every shape must be static, so this module provides:
   (enlsip_functions.jl:17-31) with a traced diagonal length, including
   the deliberate ``sqrt(len)`` tolerance factor.
 
-Everything is pure, fixed-shape, and vmap/jit friendly.  TPU notes:
-the factorization is a ``lax.fori_loop`` of rank-1 updates (VPU work);
-under ``vmap`` the batch dimension fills the vector lanes, which is the
+Everything is pure, fixed-shape, and vmap/jit friendly.  The
+factorization is a ``lax.fori_loop`` of rank-1 updates (elementwise
+work); under ``vmap`` the batch dimension is the wide axis, which is the
 intended high-throughput regime.  The big GEMMs (``J @ Q``) happen
-outside on the MXU.
+outside.
 """
 
 from __future__ import annotations

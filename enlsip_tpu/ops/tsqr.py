@@ -2,9 +2,10 @@
 
 The giant-m configuration (SURVEY.md §5.7) shards the m residual rows
 over the device mesh.  The default path lets GSPMD partition the
-sequential pivoted-QR loop of ops/blocked_qr.py — correct, and cheap on
-ICI (every collective is O(n) per step) — but each of the ~n steps
-synchronizes, which hurts when the mesh spans hosts (DCN latency).
+sequential pivoted-QR loop of ops/blocked_qr.py: correct, and cheap
+between the devices of one host (every collective is O(n) per step),
+but each of the ~n steps synchronizes, which hurts when the mesh spans
+hosts (network latency).
 This module provides the classic communication-optimal alternative:
 
   stage 1 (local, zero communication): each shard factors its own
@@ -46,9 +47,9 @@ class TSQRF:
     qloc: (m, n) row-sharded block-diagonal thin local Q factors;
     f2: replicated CPQR of the stacked local Rs ((D*n, n) buffer);
     axis: mesh axis name the rows are sharded over (static aux data);
-    ``axis=None`` is the SINGLE-CHIP tall-skinny variant (D = 1): one
+    ``axis=None`` is the SINGLE-DEVICE tall-skinny variant (D = 1): one
     unpivoted thin QR of the whole matrix + pivoted QR of its (n, n)
-    R — one blocked MXU pass over the tall data instead of the
+    R, one blocked pass over the tall data instead of the
     sequential per-column pivot loop (the auto-dispatch for
     m >> n in core/subproblem.gn_search_direction).
     Exposes R/perm/diag with the shapes the direct CPQRF would have for
@@ -119,13 +120,12 @@ def tsqr_cpqr(M: jax.Array, nsteps, axis: str | None) -> TSQRF:
 
 @jax.tree_util.register_pytree_node_class
 class CholQRF:
-    """Shifted CholeskyQR + pivoted QR of the (n, n) triangular factor —
-    the MXU-speed factorization for tall J2 panels.
+    """Shifted CholeskyQR + pivoted QR of the (n, n) triangular factor,
+    the GEMM-speed factorization for tall J2 panels.
 
-    XLA's Householder thin QR on a (5M, 100) f32 buffer runs at
-    ~0.1 TFLOP/s on v5e (measured 1.07 s — 80% of a giant-m GN
-    iteration); the Gram contraction G = M^T M runs at MXU speed
-    (~37 ms including the J build).  So: R1 = chol(G + shift*I)^T-free
+    XLA's Householder thin QR on a (5M, 100) buffer is a sequential
+    column loop far below GEMM rate, while the Gram contraction
+    G = M^T M is one large GEMM.  So: R1 = chol(G + shift*I)^T-free
     upper factor, and Q = M R1^{-1} kept IMPLICIT — no (m, n) Q buffer
     is ever materialized; Q^T v costs one M^T GEMV + one (n, n)
     triangular solve.
@@ -151,7 +151,7 @@ class CholQRF:
     restores the Householder path.
     """
 
-    def __init__(self, M, R1, f2: CPQRF, R2=None, G=None, jtrx=None):
+    def __init__(self, M, R1, f2: CPQRF, R2=None, G=None):
         self.M = M        # (m, n) the factored buffer (not copied)
         self.R1 = R1      # (n, n) upper, dead columns zeroed
         self.f2 = f2      # CPQR of R2 @ R1 (the refined factor)
@@ -167,13 +167,9 @@ class CholQRF:
         # the GN d-vector and the LEAEST rhs never re-stream the tall
         # buffer (benchmarks/giant_m_profile.py attribution).
         self.G = G
-        # Optional precomputed M^T rx (the fused Pallas pass emits it
-        # alongside the Gram); consumers that would stream M^T @ rx
-        # read this instead (subproblem.j2_transform_d / LEAEST).
-        self.jtrx = jtrx
 
     def tree_flatten(self):
-        return (self.M, self.R1, self.f2, self.R2, self.G, self.jtrx), None
+        return (self.M, self.R1, self.f2, self.R2, self.G), None
 
     @classmethod
     def tree_unflatten(cls, aux, children):
@@ -192,8 +188,7 @@ class CholQRF:
         return self.f2.diag[: self.M.shape[1]]
 
 
-def cholqr_cpqr(M: jax.Array, nsteps, col_live=None, gram=None,
-                jtrx=None) -> CholQRF:
+def cholqr_cpqr(M: jax.Array, nsteps, col_live=None) -> CholQRF:
     """Column-pivoted QR of a tall (m, n) buffer via shifted CholeskyQR
     (implicit Q) + pivoted QR of R1.  Works transparently row-sharded:
     the Gram GEMM contracts the sharded axis (one psum).
@@ -215,18 +210,15 @@ def cholqr_cpqr(M: jax.Array, nsteps, col_live=None, gram=None,
     recommended in docs/tutorial.md's giant-m section)."""
     from jax.scipy.linalg import solve_triangular
     n = M.shape[1]
-    # ``gram``: the caller already holds M^T M (the fused Pallas WY
-    # pass emits it with the apply — ops/pallas_wy.wy_gram_project);
-    # recomputing it here would re-stream the tall buffer.
-    G_raw = (M.T @ M) if gram is None else gram     # (n, n), MXU speed
+    G_raw = M.T @ M                                 # (n, n)
     G = G_raw
     if col_live is not None:
         # Dead-column masking moved to the SMALL side: the live-live
         # block of G is bitwise identical whether the (m, n) buffer or
         # the (n, n) Gram is masked, so passing the UNMASKED buffer
         # (e.g. JQ1) avoids materializing a second (m, n) masked copy
-        # per factorization (a full HBM round trip on giant-m —
-        # benchmarks/giant_m_profile.py).  qt_apply_cholqr already
+        # per factorization (a full device-memory round trip on
+        # giant-m).  qt_apply_cholqr already
         # masks its (n,) projection by R1-diag liveness.
         G = jnp.where(col_live[None, :] & col_live[:, None], G, 0.0)
     dG = jnp.diagonal(G)
@@ -245,7 +237,7 @@ def cholqr_cpqr(M: jax.Array, nsteps, col_live=None, gram=None,
     if jnp.finfo(M.dtype).eps > jnp.finfo(jnp.float64).eps:
         # f32: single pass (see class docstring for the envelope).
         return CholQRF(M=M, R1=R1, f2=cpqr_blocked(R1, nsteps=nsteps),
-                       G=G_raw, jtrx=jtrx)
+                       G=G_raw)
     # --- f64 refinement pass (implicit CholeskyQR2) --------------------
     # G_Q = R1^{-T} G R1^{-1} is the Gram of the implicit Q; its
     # Cholesky factor R2 measures (and removes) the orthogonality loss.
@@ -268,7 +260,7 @@ def cholqr_cpqr(M: jax.Array, nsteps, col_live=None, gram=None,
     # application composes the two factors (see CholQRF.R2).
     Rr = jnp.where(live[None, :], R2 @ R1, 0.0)
     return CholQRF(M=M, R1=R1, f2=cpqr_blocked(Rr, nsteps=nsteps), R2=R2,
-                   G=G_raw, jtrx=jtrx)
+                   G=G_raw)
 
 
 def qt_apply_cholqr_from_projection(f: CholQRF, y: jax.Array,
@@ -290,13 +282,6 @@ def qt_apply_cholqr(f: CholQRF, v: jax.Array) -> jax.Array:
 def _qt_cholqr(f: CholQRF, y: jax.Array, v_sq: jax.Array) -> jax.Array:
     from jax.scipy.linalg import solve_triangular
     m, n = f.M.shape
-    # Elided-JQ1 mode (factored-Jacobian GN path): M is a (0, n)
-    # placeholder — every consumer of the returned embedding reads at
-    # most the leading n entries plus the complement norm at [n], so a
-    # compact (n + 1,) buffer is exact (sub_search_direction slices
-    # d[:min(m, n)] = d[:n] there; the d-norms are over zeros beyond).
-    if m == 0:
-        m = n + 1
     # R1^T w = y on the live columns; dead rows/cols of R1 are zero, so
     # solve on a unit-diagonal-patched copy and re-zero.
     live = jnp.abs(jnp.diagonal(f.R1)) > 0.0

@@ -148,7 +148,7 @@ def solve_suite_fused(families: dict, opts: Options, tols_fn,
         raise ValueError(
             "escalate_f64 is not wired through the sharded path; run the "
             "mesh solve, then escalate flagged lanes explicitly via "
-            "solve_batched(..., escalate_mask=...) (ADVICE r4)")
+            "solve_batched(..., escalate_mask=...)")
     if fused is None:
         fused = fuse_families(families)
     tols = tols_fn(dtype)

@@ -5,7 +5,7 @@ one ``starting_point`` (reference ``src/solver.jl:62-91``), so its
 outcome on problems with alternate stationary points, degenerate
 constraints, or divergent standard starts is whatever that one
 trajectory produces (see PARITY.md's oracle-adjudicated hs2/hs13/
-hs16/hs27 outcomes).  The batched TPU framework's structural counter
+hs16/hs27 outcomes).  The batched framework's structural counter
 costs one launch: solve the SAME problem from K perturbed starts as K
 lanes of :func:`~enlsip_tpu.parallel.batch.solve_batched` and keep the
 best converged lane.  ``benchmarks/hs_suite_bench.py`` drives this

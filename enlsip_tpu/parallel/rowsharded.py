@@ -1,6 +1,6 @@
 """Giant-m problems: residual rows sharded across the mesh.
 
-SURVEY.md §5.7: the TPU analogue of sequence parallelism for this
+SURVEY.md §5.7: the analogue of sequence parallelism for this
 framework partitions the long axis — the m residual rows of ``rx`` and
 ``J`` (and everything derived from them: the J2 buffer, its reflectors
 ``V``, the ``d`` vector) — across devices, keeping the small n-space
@@ -53,9 +53,28 @@ def _carry_shardings(carry: Carry, mesh: Mesh, axis: str):
     return jax.tree.map(pick, carry)
 
 
+def _bind_rows(fns: Functions, data) -> Functions:
+    """Append the problem data to every user callable's arguments."""
+    if data is None:
+        return fns
+    return Functions(*(None if f is None else partial(_with_data, f, data)
+                       for f in fns))
+
+
+def _with_data(f, data, *args):
+    return f(*args, data)
+
+
+@partial(jax.jit, static_argnames=("fns", "dims", "opts"))
+def _run_rows(carry, data, tols, fns, dims, opts):
+    return run_chunk(carry, _bind_rows(fns, data), dims, opts, tols,
+                     opts.max_iter + 1)
+
+
 def solve_rowsharded(fns: Functions, x0, dims: Dims, opts: Options,
                      tols: Tols, mesh: Mesh | None = None,
-                     axis: str = "rows", dtype=None, tsqr: bool = False):
+                     axis: str = "rows", dtype=None, tsqr: bool = False,
+                     data=None):
     """Solve ONE giant-m CNLS instance with residual rows sharded over
     ``mesh``.  m must divide the mesh size.  Newton is unavailable in
     this configuration (the reference itself force-disables second
@@ -63,10 +82,17 @@ def solve_rowsharded(fns: Functions, x0, dims: Dims, opts: Options,
     ``opts.second_derivatives=False``.
 
     ``tsqr=True`` switches the J2 factorization from GSPMD-partitioning
-    of the pivot loop (one O(n) collective per step, ICI-friendly) to
+    of the pivot loop (one O(n) collective per step) to
     the two-stage TSQR reduction (ops/tsqr.py: local panel QRs + one
     gathered stacked-R pivoted QR — constant collective count per
-    factorization, the DCN/multi-host-friendly choice).
+    factorization, the multi-host-friendly choice).
+
+    ``data`` (optional pytree): problem arrays the callables read, passed
+    to the jitted solve as arguments (leaves with a leading m axis are
+    sharded over the rows, the rest replicated) instead of being closed
+    over, which would embed them in the program as constants.  The
+    ``fns`` members then take the data as their last argument
+    (``res(x, data)``, ``res_trial(x, p, data)``, ``jac_base(data)``).
     """
     import dataclasses
 
@@ -78,11 +104,14 @@ def solve_rowsharded(fns: Functions, x0, dims: Dims, opts: Options,
         opts = dataclasses.replace(opts, tsqr_axis=axis)
         assert dims.m // mesh.devices.size >= dims.n, \
             "tsqr needs m/D >= n row panels"
+    rows = NamedSharding(mesh, P(axis))
+    rep = NamedSharding(mesh, P())
+    if data is not None:
+        data = jax.tree.map(lambda a: jax.device_put(
+            a, rows if a.ndim and a.shape[0] == dims.m else rep), data)
     with jax.set_mesh(mesh), matmul_precision_scope(opts):
-        carry = init_carry(fns, x0, dims, opts, dtype)
+        carry = init_carry(_bind_rows(fns, data), x0, dims, opts, dtype)
         shardings = _carry_shardings(carry, mesh, axis)
         carry = jax.device_put(carry, shardings)
-        step = jax.jit(partial(run_chunk, fns=fns, dims=dims, opts=opts,
-                               tols=tols, chunk=opts.max_iter + 1))
-        carry = step(carry)
+        carry = _run_rows(carry, data, tols, fns=fns, dims=dims, opts=opts)
     return carry

@@ -1,10 +1,9 @@
-"""Mesh sharding of batched solves across chips/hosts.
+"""Mesh sharding of batched solves across devices and hosts.
 
-SURVEY.md §5.8: the reference has no communication layer; the TPU-native
-design shards the *batch* axis of independent CNLS instances over a
-``jax.sharding.Mesh`` and lets XLA insert the collectives (the
-all-lanes-converged predicate inside the while_loop becomes an
-all-reduce over ICI/DCN; final solutions are gathered only on exit).
+SURVEY.md §5.8: the reference has no communication layer; this design
+shards the *batch* axis of independent CNLS instances over a 1-D
+``jax.sharding.Mesh``.  Each device solves its own lanes to
+convergence (``shard_map``); results are gathered only on exit.
 
 Multi-host use: call ``jax.distributed.initialize()`` first, build the
 mesh over ``jax.devices()``, and feed a process-local shard of the
@@ -35,17 +34,25 @@ def batch_mesh(devices: Sequence[jax.Device] | None = None,
 
 
 @partial(jax.jit, static_argnames=("fns", "dims", "opts", "dtype_name",
-                                   "check_every"))
+                                   "check_every", "mesh", "axis"))
 def _run_sharded_jit(x0, data, rdims, fns, dims, opts, tols, dtype_name,
-                     check_every=1):
-    """Shared jitted body: the batch sharding is pinned on the inputs
-    (device_put / make_array_from_process_local_data); jit propagates it
-    through the carry and inserts the convergence all-reduce."""
-    carry = init_batch(fns, x0, dims, opts, jnp.dtype(dtype_name), data,
-                       rdims)
-    carry = run_batch(carry, fns, dims, opts, tols, data=data, rdims=rdims,
-                      check_every=check_every)
-    return finalize(carry)
+                     check_every=1, mesh=None, axis="batch"):
+    """Shared jitted body: each device runs the whole batched solve on
+    its own lanes (``shard_map`` over the batch axis).  Lanes are
+    independent, so no collective runs inside the loop, and the fused
+    kernels only ever see device-local operands."""
+    def local(x0, data, rdims, tols):
+        carry = init_batch(fns, x0, dims, opts, jnp.dtype(dtype_name), data,
+                           rdims)
+        carry = run_batch(carry, fns, dims, opts, tols, data=data,
+                          rdims=rdims, check_every=check_every)
+        return finalize(carry)
+
+    lanes = P(axis)
+    return jax.shard_map(local, mesh=mesh,
+                         in_specs=(lanes, lanes, lanes, P()),
+                         out_specs=lanes, check_vma=False)(x0, data, rdims,
+                                                           tols)
 
 
 def solve_batched_sharded(fns: Functions, x0_batch, dims: Dims,
@@ -81,7 +88,7 @@ def solve_batched_sharded(fns: Functions, x0_batch, dims: Dims,
 
     with matmul_precision_scope(opts):
         res = _run_sharded_jit(x0_batch, data, rdims, fns, dims, opts, tols,
-                               jnp.dtype(dtype).name)
+                               jnp.dtype(dtype).name, mesh=mesh, axis=axis)
     if res.x.shape[0] != B:  # drop padding
         res = BatchResult(exit_code=res.exit_code[:B], x=res.x[:B],
                           f=res.f[:B], n_iter=res.n_iter[:B],
@@ -126,10 +133,8 @@ def solve_batched_sharded_mp(fns: Functions, x0_local, dims: Dims,
     BatchResult of GLOBAL arrays — use :func:`local_lanes` on its leaves
     to read back this process's results.
 
-    The convergence predicate inside the while_loop (run_batch's
-    ``jnp.any(exit_code == 0)``) becomes a cross-process all-reduce that
-    XLA lowers onto the collectives backend (ICI/DCN on TPU pods, gloo
-    on the CPU harness)."""
+    Each device loops until its own lanes have terminated, so the
+    processes exchange data only to assemble the global result."""
     mesh = mesh or batch_mesh()
     x0_local = np.asarray(x0_local)
     dtype = dtype or x0_local.dtype
@@ -148,4 +153,5 @@ def solve_batched_sharded_mp(fns: Functions, x0_local, dims: Dims,
     with matmul_precision_scope(opts):
         return _run_sharded_jit(x0, data, rdims, fns, dims, opts, tols,
                                 jnp.dtype(dtype).name,
-                                check_every=check_every)
+                                check_every=check_every, mesh=mesh,
+                                axis=axis)

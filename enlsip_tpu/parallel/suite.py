@@ -3,7 +3,7 @@ families solved on one device/mesh.
 
 The BASELINE "multi-host scenario batch" config mixes instances of
 different HS problems.  Different families have different (n, m, q, l)
-— under jit those are static — so the TPU-correct decomposition is
+— under jit those are static — so the jit-friendly decomposition is
 *bucketing*: lanes are grouped by family, each family's batch runs as
 one vmapped (optionally mesh-sharded) solve, and families execute
 back-to-back.  No shape padding, no trajectory perturbation: every

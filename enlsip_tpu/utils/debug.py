@@ -2,7 +2,7 @@
 
 The reference is single-threaded with no sanitizers; its closest bug
 class (aliased Iteration copies) is structurally impossible here
-(pure pytrees).  What replaces it on TPU: NaN/Inf containment.  This
+(pure pytrees).  What replaces it on the device: NaN/Inf containment.  This
 module wraps user function bundles so every evaluation is checked with
 ``jax.experimental.checkify`` — use during model development, drop for
 production runs (checks cost a pass per evaluation).

@@ -2,7 +2,7 @@
 
 The reference's observability is wall-clock timing + evaluation
 counters (SURVEY.md §5.1, enlsip_functions.jl:2676, cnls_model.jl:40-62)
-— both preserved in ``ExecutionInfo``.  This module adds the TPU-side
+— both preserved in ``ExecutionInfo``.  This module adds the device-side
 instrumentation the reference never needed: ``jax.profiler`` traces and
 a tiny stage-timer for host-side phase breakdowns.
 """

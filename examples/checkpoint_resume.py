@@ -21,10 +21,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                 ".jax_cache"))
+from enlsip_tpu.utils import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import enlsip_tpu as et
 from enlsip_tpu.core.driver import Functions, init_carry, iterate_body

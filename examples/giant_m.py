@@ -1,8 +1,8 @@
-"""Giant-m: millions of residual rows on one chip (or a mesh).
+"""Giant-m: millions of residual rows on one device (or a mesh).
 
 A 100-parameter data-fit with the residual axis scaled to 2,000,000
 rows and inequality constraints active at the solution.  Everything
-row-shaped (rx, J, and every derived product) streams through the MXU;
+row-shaped (rx, J, and every derived product) is a GEMM-class stream;
 the J2 panel factorization takes the CholeskyQR tall path
 (ops/tsqr.CholQRF, Options.tall_qr default) and the line search rides
 cached rays via the directional-residual hook (Functions.res_trial:
@@ -14,7 +14,7 @@ of this configuration (parallel/rowsharded.solve_rowsharded) runs the
 same solver over a device mesh — see __graft_entry__.dryrun_multichip
 layouts 2/3.
 
-Run on a TPU:  python examples/giant_m.py
+Run:  python examples/giant_m.py
 """
 
 import os
@@ -26,11 +26,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                 ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from enlsip_tpu.utils import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

@@ -6,9 +6,9 @@ jitted batch: each family pads to the bucket maxima with masked
 residual/constraint rows, and per-lane dimensions select the live
 slice (parallel/hetero.py).  The reference solves one instance at a
 time (/root/reference/src/enlsip_functions.jl:2776-2878); fusing
-heterogeneous scenario batches is the TPU-native extension.
+heterogeneous scenario batches is this framework's extension.
 
-Run on a TPU:  python examples/mixed_suite.py
+Run:  python examples/mixed_suite.py
 """
 
 import os
@@ -20,10 +20,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                 ".jax_cache"))
+from enlsip_tpu.utils import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

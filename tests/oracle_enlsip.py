@@ -4,7 +4,7 @@ This module deliberately mirrors the structure of the reference Julia
 implementation (/root/reference/src/enlsip_functions.jl + structures.jl)
 function by function, so the JAX solver's golden trajectories can be
 pinned to *reference-derived* sequences instead of to the implementation
-itself (VERDICT.md round-1 item 5).  It is test-only code: eager,
+itself.  It is test-only code: eager,
 sequential, float64, no JAX.  Every function cites the reference lines
 it transliterates.  Known reference crash sites are guarded with the
 same repairs the production solver documents (PARITY.md D3/D4 and the

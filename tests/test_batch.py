@@ -71,6 +71,22 @@ def test_solve_batched_sharded(eight_devices):
     np.testing.assert_allclose(np.asarray(res.f), HS65_FSTAR, atol=1e-6)
 
 
+def test_solve_batched_sharded_lanes_stay_on_their_device(eight_devices):
+    """Each device solves its own lanes: the results are sharded over
+    every device of the mesh and equal the unsharded solve lane by lane."""
+    fns, dims, opts, tols = _hs65_setup()
+    mesh = batch_mesh(eight_devices)
+    starts = _perturbed_starts(16, seed=5)
+    res = solve_batched_sharded(fns, starts, dims, opts, tols, mesh=mesh)
+    assert res.x.sharding.device_set == set(eight_devices)
+    assert {s.data.shape[0] for s in res.x.addressable_shards} == {2}
+    ref = solve_batched(fns, starts, dims, opts, tols)
+    np.testing.assert_allclose(np.asarray(res.x), np.asarray(ref.x),
+                               atol=1e-12)
+    np.testing.assert_array_equal(np.asarray(res.exit_code),
+                                  np.asarray(ref.exit_code))
+
+
 def test_solve_batched_sharded_pads_uneven(eight_devices):
     fns, dims, opts, tols = _hs65_setup()
     mesh = batch_mesh(eight_devices)

@@ -59,7 +59,7 @@ def test_checkpoint_sharded_fused_resume(tmp_path):
     """Design-point layout (dryrun layout 5: fused hetero scenario
     batch, batch axis sharded over the mesh): checkpoint mid-solve,
     reload, re-pin the sharding, continue — BIT-IDENTICAL to the
-    uninterrupted run (VERDICT r4 #8).  CI runs it at B=128 over the
+    uninterrupted run.  CI runs it at B=128 over the
     8-device virtual mesh; __graft_entry__.dryrun_multichip runs the
     same save/load/continue at the full 1M-lane scale."""
     from jax.sharding import NamedSharding, PartitionSpec as P

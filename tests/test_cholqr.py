@@ -1,5 +1,5 @@
 """Shifted-CholeskyQR tall-panel factorization (ops/tsqr.CholQRF) —
-the MXU-speed default (Options.tall_qr="cholqr") for giant-m J2 panels.
+the GEMM-speed default (Options.tall_qr="cholqr") for giant-m J2 panels.
 
 Must reproduce the direct CPQR's pivoting, R magnitudes, rank logic,
 and every consumer-level quantity (triangular solves on d, prefix

@@ -7,7 +7,7 @@ converged lane's dpsi0 is pure cancellation roundoff and can land at
 +O(eps*scale); the solver only treats dpsi0 as true ascent when it
 clears 10*eps(dtype)*dpsi_scale, where dpsi_scale sums the magnitudes
 of dpsi0's own summands with the same fcx gate the summands carry
-(ADVICE round-2 medium finding).
+(a review finding: an inflated floor hid genuine ascent).
 
 The UPBND threshold: a strictly-positive inactive cx caps the step at
 the constraint boundary (reference :2149-2178).  Round 1 replaced the
@@ -47,8 +47,8 @@ def test_dpsi_scale_fcx_gating():
     """When nrm_cx == 0 (all active cx within dimA are zero) the
     reference's normalization zeroes every cx-carrying product; the
     noise scale must drop those terms too, even when active slots
-    BEYOND dimA carry large cx (the ADVICE round-2 medium finding:
-    an inflated floor can classify genuine ascent as descent)."""
+    BEYOND dimA carry large cx (an inflated floor can classify
+    genuine ascent as descent)."""
     dims = Dims(n=3, m=4, q=0, l=5)
     rng = np.random.default_rng(7)
     Jp = rng.normal(size=4)

@@ -110,7 +110,7 @@ def test_max_norm_weights():
 
 
 def test_f32_solve():
-    """float32 (TPU-native dtype) with eps-scaled tolerances."""
+    """float32 (the accelerator dtype) with eps-scaled tolerances."""
     model = et.CnlsModel(**HS65)
     et.solve(model, dtype=jnp.float32)
     assert et.status(model) == "found_first_order_stationary_point"

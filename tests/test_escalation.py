@@ -1,4 +1,4 @@
-"""f64-escalation mode (VERDICT r3 #5): after a batched f32 solve,
+"""f64-escalation mode: after a batched f32 solve,
 re-solve a lane subset at f64 in one follow-up launch and merge.
 
 Escalated lanes must reproduce a pure-f64 solve from the same starts

@@ -45,9 +45,8 @@ def test_multiprocess_parity_and_scaling_proxy():
             assert w["suite"]["ok"], w
 
     assert result["weak_scaling_efficiency"] is not None
-    # Floor teeth (VERDICT r4 #5): at the quick size (b_local=8) the
-    # proxy is sync-dominated — measured ~0.34 on this machine vs 0.83
-    # at the bench size (b_local=4096, BENCH multiproc_* fields).  The
+    # Floor teeth: at the quick size (b_local=8) the
+    # proxy is sync-dominated (CPU processes, measured ~0.34).  The
     # loose floor is a regression tripwire for the distributed path
     # (e.g. a stray per-step host sync would crater it), not the
     # BASELINE >=90% evidence — that is the bench-size measurement.

@@ -1,4 +1,4 @@
-"""Reference-oracle golden trajectories (VERDICT round-1 item 5).
+"""Reference-oracle golden trajectories.
 
 ``oracle_enlsip.py`` is a plain-numpy transliteration of the reference
 loop (enlsip_functions.jl:2638-2880 + every routine it calls).  These

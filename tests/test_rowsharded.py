@@ -97,3 +97,27 @@ def test_tsqr_factorization_matches_direct(eight_devices):
                                np.abs(np.asarray(d_direct[:n])), atol=1e-10)
     np.testing.assert_allclose(float(jnp.sum(d * d)), float(jnp.dot(v, v)),
                                rtol=1e-12)
+
+
+def test_rowsharded_data_argument_matches_closure(eight_devices):
+    """Problem arrays passed as ``data`` (jit arguments, rows sharded)
+    give the closure-captured solve's result."""
+    fns, dims, opts, tols = _setup()
+    x0 = jnp.zeros(N, jnp.float64)
+    mesh = row_mesh(eight_devices)
+    ref = solve_rowsharded(fns, x0, dims, opts, tols, mesh=mesh)
+
+    def res(x, d):
+        z = d["W"] @ x
+        return d["Y"] - (z + 0.1 * jnp.tanh(z))
+
+    fns_d = Functions(res=res, jac_res=jax.jacfwd(res),
+                      cons=lambda x, d: _ineq(x),
+                      jac_cons=lambda x, d: jax.jacfwd(_ineq)(x))
+    data = {"W": jnp.asarray(_W), "Y": jnp.asarray(_Y)}
+    carry = solve_rowsharded(fns_d, x0, dims, opts, tols, mesh=mesh,
+                             data=data)
+    assert len(carry.rx.sharding.device_set) == len(eight_devices)
+    np.testing.assert_allclose(np.asarray(carry.x), np.asarray(ref.x),
+                               atol=1e-12)
+    assert int(carry.exit_code) == int(ref.exit_code)

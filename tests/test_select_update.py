@@ -1,6 +1,6 @@
 """Select-based update helpers (ops/select_update.py).
 
-These exist to work around a TPU-backend miscompile of batched
+These exist to work around a backend miscompile of batched
 ``indices_are_sorted=True`` scatters (silently dropped updates for
 batch rows >= 1024 — see the module docstring).  The tests here pin
 the helpers' semantics to the ``.at`` forms at exactly the batch
@@ -58,7 +58,7 @@ def test_helpers_match_at_semantics(B):
 def test_batch_composition_independence():
     """A lane's solve result must be bit-identical regardless of batch
     size, its position, and the other lanes' content (the invariant the
-    scatter miscompile broke for B >= 1024 on TPU)."""
+    scatter miscompile broke for B >= 1024)."""
     from enlsip_tpu.core.driver import Functions
     from enlsip_tpu.core.types import Dims, Options, Tols
     from enlsip_tpu.models.model import _model_functions
